@@ -1,23 +1,21 @@
-"""Extended benchmark suite — the BASELINE.md config table.
+"""Extended benchmark suite on the card: one row per config.
 
-Reports one row per benchmark config (BASELINE.json `configs`):
   1. 256×256→512×512 a=2 (reference's own test size)
   2. 1080p→4K a=3, single frame
-  3. batch-8 1080p→4K fused
-  4. 4K→8K a=3 (the headline; bench.py reports this one)
-  5. streaming 4K→8K row-chunked (bounded-memory mode)
+  3. batch-32 1080p→4K
+  4. 4K→8K a=3 (the headline; bench.py compares formulations there)
+  5. 4K→8K+1px (large-N rational), drop+normalize, drop-edge dering and
+     width-first quantized intermediate at 4K→8K
+  6. streaming 4K→8K row-chunked (bounded-memory mode)
 
 Usage: python bench_suite.py [--backend auto|xla|pallas] [--iters N]
-                             [--mesh R]
-Prints one JSON line per row plus a human table to stderr.
+                             [--mesh R] [--frames N] [--bf16]
+Prints one JSON line per row, each naming the device and the card's
+power limit, plus a human line to stderr.  Refuses to run without a GPU.
 
-``--mesh R`` adds the BASELINE.md row-partitioned config: a (data × R)
-mesh running ShardedUpscaler, reporting scaling efficiency vs the
-single-device throughput measured in the same process.  Runs on whatever
-devices exist — the virtual CPU mesh today (with a stderr caveat), real
-chips when available:
-    XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
-        python bench_suite.py --mesh 8
+``--mesh R`` adds the row-partitioned config: a (data × R) mesh running
+ShardedUpscaler, reporting scaling efficiency vs the single-card
+throughput measured in the same process (``--mesh 4`` on four cards).
 """
 
 from __future__ import annotations
@@ -29,29 +27,13 @@ import time
 
 import numpy as np
 
-
-_RB = None
-
-
-def _rb():
-    global _RB
-    if _RB is None:
-        from lanczos_tpu.utils.profiling import readback_cost
-
-        _RB = readback_cost()
-        if _RB > 2.0:
-            print(f"# WARNING: device unhealthy (readback {_RB:.1f}s)",
-                  file=sys.stderr)
-    return _RB
+_ID: dict = {}
 
 
 def run_case(name, fn, in_shape, out_shape, iters, extra=None):
-    from lanczos_tpu.utils.profiling import steady_time
+    from lanczos_tpu.utils.profiling import chip_spec, time_fn
 
-    dt = steady_time(lambda _=None: fn(), None, iters=iters, rb_cost=_rb())
-
-    from lanczos_tpu.utils.profiling import chip_spec
-
+    dt = time_fn(fn, iters=iters, reps=3)
     bw, _ = chip_spec()
     batch = extra.get("batch", 1) if extra else 1
     out_mpix = batch * out_shape[0] * out_shape[1] / 1e6
@@ -61,12 +43,13 @@ def run_case(name, fn, in_shape, out_shape, iters, extra=None):
     roof = out_mpix / (min_bytes / bw)
     row = {
         "metric": name,
-        "value": round(out_mpix / dt, 1),
+        "value": out_mpix / dt,
         "unit": "Mpix/s",
-        "vs_baseline": round(out_mpix / dt / roof, 4),
+        "roofline_share": out_mpix / dt / roof,
+        **_ID,
     }
     print(json.dumps(row))
-    print(f"# {name}: {dt*1e3:.2f} ms  roofline {roof:.0f} Mpix/s", file=sys.stderr)
+    print(f"# {name}: {dt*1e3:.3f} ms  roofline {roof:.0f} Mpix/s", file=sys.stderr)
     return row
 
 
@@ -77,7 +60,7 @@ def main():
     ap.add_argument("--mesh", type=int, default=0, metavar="R",
                     help="add a row-sharded config over a (data x R) mesh")
     ap.add_argument("--frames", type=int, default=0, metavar="N",
-                    help="with --mesh: add the multi-chip video-streaming "
+                    help="with --mesh: add the multi-card video-streaming "
                          "row (N frames through the (data x R) mesh)")
     ap.add_argument("--bf16", action="store_true",
                     help="add a Precision.BF16 4K->8K row")
@@ -85,6 +68,13 @@ def main():
 
     import jax
     import jax.numpy as jnp
+
+    from lanczos_tpu import platform
+    from lanczos_tpu.utils.profiling import gpu_name_and_power, require_gpu
+
+    _ID["device"] = require_gpu()
+    _ID["card"] = gpu_name_and_power()
+    platform.enable_compile_cache()
 
     from lanczos_tpu.core.config import Profile, ResampleConfig
     from lanczos_tpu.models.upscaler import Upscaler
@@ -104,28 +94,15 @@ def main():
         # prime-ish arbitrary scale (N=4321/7681) — exercises the
         # generalized per-block plans (shift-FMA caps at 32 phases)
         ("4K->8K+1px_a3_largeN", (2160, 3840), (4321, 7681), 3, None),
-        # drop+normalize — fused in the MXU kernel (formerly ~39 ms gather)
+        # drop+normalize — per-row renormalized weights in the fused kernel
         ("4K->8K_a3_dropnorm", (2160, 3840), (4320, 7680), 3, None),
-        # drop-edge dering — fused round 3 (one-hot bounds use the
-        # operator's clipped indices; formerly ~39 ms gather)
+        # drop-edge dering (one-hot bounds use the operator's clipped
+        # indices)
         ("4K->8K_a3_dropdering", (2160, 3840), (4320, 7680), 3, None),
         # width-first quantized intermediate — transposed-kernel
-        # delegation (round 3; formerly ~39 ms gather)
+        # delegation
         ("4K->8K_a3_wf_quant", (2160, 3840), (4320, 7680), 3, None),
     ]
-    if jax.default_backend() == "cpu":
-        # off-chip smoke run: tiny analogs of every row (CPU at 4K takes
-        # minutes per case and measures nothing meaningful)
-        cases = [
-            ("64x64->128x128_a2_smoke", (64, 64), (128, 128), 2, None),
-            ("135p->270p_a3_smoke", (136, 240), (272, 480), 3, None),
-            ("batch4_135p_smoke", (136, 240), (272, 480), 3, 4),
-            ("270p->540p_a3_smoke", (272, 480), (544, 960), 3, None),
-            ("largeN_smoke", (272, 480), (545, 961), 3, None),
-            ("smoke_dropnorm", (272, 480), (544, 960), 3, None),
-            ("smoke_dropdering", (272, 480), (544, 960), 3, None),
-            ("smoke_wf_quant", (272, 480), (544, 960), 3, None),
-        ]
     for name, ins, outs, a, batch in cases:
         kw = {}
         if "dropnorm" in name:
@@ -163,8 +140,6 @@ def main():
         from lanczos_tpu.core.config import Precision
 
         ins, outs = (2160, 3840), (4320, 7680)
-        if jax.default_backend() == "cpu":
-            ins, outs = (540, 960), (1080, 1920)
         cfg = ResampleConfig.from_profile(
             Profile.PRECISE, ins, out_shape=outs, a=3,
             precision=Precision.BF16,
@@ -178,45 +153,38 @@ def main():
 
     # streaming (bounded memory): whole-frame wrapper, host loop included
     sins, souts, schunk = (2160, 3840), (4320, 7680), 1024
-    if jax.default_backend() == "cpu":
-        sins, souts, schunk = (272, 480), (544, 960), 128
     cfg = ResampleConfig.from_profile(
         Profile.PRECISE, sins, out_shape=souts, a=3
     )
     sm = StreamingUpscaler(cfg, chunk_rows=schunk)
     frame = np.asarray(img(*sins))
     t0 = time.perf_counter()
-    out = sm(frame)
+    sm(frame)
     dt0 = time.perf_counter() - t0  # includes compile
-    from lanczos_tpu.utils.profiling import steady_time
+    from lanczos_tpu.utils.profiling import time_fn
 
-    dt = steady_time(
-        lambda _=None: sm(frame), None,
-        iters=max(1, args.iters // 3), rb_cost=_rb(),
-    )
+    # host arrays in and out: the wrapper's own readback ends each call
+    dt = time_fn(sm, frame, iters=max(1, args.iters // 3), reps=3)
     mpix = souts[0] * souts[1] / 1e6
-    from lanczos_tpu.utils.profiling import chip_spec
-
-    sbw, _ = chip_spec()
-    sroof = mpix / (
-        3 * (sins[0] * sins[1] + souts[0] * souts[1]) / sbw
-    )
     print(json.dumps({
         "metric": f"stream{souts[1]}x{souts[0]}_a3_chunk{schunk}",
-        "value": round(mpix / dt, 1),
+        "value": mpix / dt,
         "unit": "Mpix/s",
-        # honest fraction: the streaming mode is host-transfer-bound by
-        # design (bounded memory trades throughput), so this is small
-        "vs_baseline": round(mpix / dt / sroof, 4),
+        **_ID,
     }))
     print(f"# streaming: {dt*1e3:.2f} ms/frame (first {dt0*1e3:.0f} ms)",
           file=sys.stderr)
 
-    # row-partitioned mesh config (BASELINE.md: "8K frame row-partitioned
-    # across 8 chips"); vs_baseline = scaling efficiency (target >= 0.85)
+    # row-partitioned mesh config: measured scaling efficiency against the
+    # single-card throughput, and the halo model at the measured link rate
     if args.mesh:
-        from lanczos_tpu.parallel.multihost import scaling_efficiency
+        from lanczos_tpu.parallel.multihost import (
+            ici_halo_model,
+            measure_ici_bw,
+            scaling_efficiency,
+        )
         from lanczos_tpu.parallel.sharded import ShardedUpscaler
+        from lanczos_tpu.utils.profiling import time_fn
 
         R = args.mesh
         n_dev = len(jax.devices())
@@ -224,79 +192,39 @@ def main():
             sys.exit(f"--mesh {R} does not divide device count {n_dev}")
         D = n_dev // R
         ins, outs = (2160, 3840), (4320, 7680)
-        if jax.default_backend() == "cpu":
-            ins, outs = (512, 960), (1024, 1920)  # CPU-mesh smoke shapes
         cfg = ResampleConfig.from_profile(
             Profile.PRECISE, ins, out_shape=outs, a=3
         )
-        from lanczos_tpu.utils.profiling import steady_time
-
         single = Upscaler(cfg, backend=args.backend)
-        x1 = img(*ins)
-        jax.block_until_ready(single(x1))
-        dt1 = steady_time(single, x1, iters=args.iters, rb_cost=_rb())
+        dt1 = time_fn(single, img(*ins), iters=args.iters, reps=3)
         single_mpix_s = outs[0] * outs[1] / 1e6 / dt1
 
         mesh = jax.make_mesh((D, R), ("data", "rows"))
         sh = ShardedUpscaler(cfg, mesh)
-        xs = img(*ins, D)
-        jax.block_until_ready(sh(xs))
-        dtm = steady_time(sh, xs, iters=args.iters, rb_cost=_rb())
+        dtm = time_fn(sh, img(*ins, D), iters=args.iters, reps=3)
         total_mpix_s = D * outs[0] * outs[1] / 1e6 / dtm
         eff = scaling_efficiency(total_mpix_s, single_mpix_s, n_dev)
-        # analytic ICI model, parameterized by the path ACTUALLY measured
-        # (halo_spec: exchange dtype/width differ per backend), driven by
-        # the measured single-chip frame time.  On real multi-chip
-        # hardware vs_baseline is the MEASUREMENT (the model is a
-        # cross-check); on the virtual CPU mesh the measured ratio is
-        # meaningless (virtual devices share host cores), so the model's
-        # prediction is reported instead, clearly labeled.
-        from lanczos_tpu.parallel.multihost import ici_halo_model
-
-        virtual = jax.default_backend() == "cpu"
-        model_kw = dict(halo_bytes=sh.halo_spec()["bytes"])
-        if not virtual and R >= 2:
-            # real multi-chip ring: replace the model's assumed link
-            # bandwidth with the measured ring-ppermute number (honest
-            # queue-drained timing inside measure_ici_bw); a 1-ring is a
-            # self-copy, so the platform default stays in that case
-            from lanczos_tpu.parallel.multihost import measure_ici_bw
-
-            model_kw["ici_bw"] = measure_ici_bw(mesh, "rows")
-        model = ici_halo_model(cfg, R, dt1, **model_kw)
-        print(json.dumps({
+        row = {
             "metric": f"{outs[1]}x{outs[0]}_a3_mesh{D}x{R}",
-            "value": round(total_mpix_s, 1),
+            "value": total_mpix_s,
             "unit": "Mpix/s",
-            # vs_baseline stays a MEASUREMENT: null on a virtual mesh
-            # (virtual devices share host cores — the ratio is noise);
-            # the analytic prediction is only ever under model_eff
-            "vs_baseline": None if virtual else round(eff, 4),
-            "measured_eff": round(eff, 4),
-            "model_eff": round(model["efficiency"], 4),
-            "virtual_mesh": virtual,
-        }))
-        caveat = (
-            " [virtual CPU mesh — measured timing NOT chip-representative]"
-            if virtual else ""
-        )
-        print(
-            f"# mesh {D}x{R}: {dtm*1e3:.2f} ms measured (eff {eff:.2f}"
-            f"{caveat}); ICI model: halo {model['halo_bytes']/1024:.0f} KiB"
-            f"/dir, wire {model['t_halo_s']*1e6:.1f} us, hidden window "
-            f"{model['t_hidden_s']*1e6:.0f} us -> predicted eff "
-            f"{model['efficiency']:.3f}",
-            file=sys.stderr,
-        )
+            "measured_eff": eff,
+            **_ID,
+        }
+        if R >= 2:
+            bw = measure_ici_bw(mesh, "rows")
+            model = ici_halo_model(
+                cfg, R, dt1, halo_bytes=sh.halo_spec()["bytes"], ici_bw=bw
+            )
+            row["link_GBps_per_direction"] = bw / 1e9
+            row["model_eff"] = model["efficiency"]
+        print(json.dumps(row))
+        print(f"# mesh {D}x{R}: {dtm*1e3:.2f} ms measured (eff {eff:.3f})",
+              file=sys.stderr)
 
-        # multi-chip video streaming (BASELINE config 5: N frames through
-        # the (data x rows) mesh).  vs_baseline stays measured-only (null
-        # on a virtual mesh); the full 2-host prediction combines BOTH
-        # analytic terms — the ICI halo and the DCN host boundary — per
-        # regime (central stream source vs host-local striped I/O).
+        # N frames streamed through the (data x rows) mesh
         if args.frames:
             from lanczos_tpu.models.video import VideoUpscaler
-            from lanczos_tpu.parallel.multihost import dcn_model
 
             n_frames = args.frames
             video = np.stack([np.asarray(img(*ins)) for _ in range(
@@ -307,45 +235,16 @@ def main():
             vu(video[: vu.batch])  # compile + warm
             t0 = time.perf_counter()
             vu(video)
-            # (one whole-stream wall measurement: the host loop is part
-            # of the pipeline being measured, so steady_time's device-
-            # queue draining does not apply)
-            dts = time.perf_counter() - t0
-            fps = n_frames / dts
-            # per-step wall from the 1-chip frame time: the step's
-            # vu.batch frames run D-way data-parallel, each frame split
-            # over R row shards
-            step_s = vu.batch * dt1 / (D * R)
-            m_dcn_c = dcn_model(cfg, step_s, hosts=2,
-                                frames_per_step=vu.batch)
-            m_dcn_l = dcn_model(cfg, step_s, hosts=2,
-                                frames_per_step=vu.batch,
-                                remote_fraction=0.0)
+            # one whole-stream wall measurement: the host loop is part of
+            # the pipeline being measured
+            fps = n_frames / (time.perf_counter() - t0)
             print(json.dumps({
                 "metric": f"video{n_frames}f_{outs[1]}x{outs[0]}_mesh{D}x{R}",
-                "value": round(fps, 2),
+                "value": fps,
                 "unit": "frames/s",
-                "vs_baseline": None if virtual else round(
-                    fps * dt1 / (D * R), 4
-                ),
-                "virtual_mesh": virtual,
-                "model_eff_ici": round(model["efficiency"], 4),
-                "model_eff_dcn_central": round(m_dcn_c["efficiency"], 4),
-                "model_eff_dcn_local_io": round(m_dcn_l["efficiency"], 4),
-                "model_eff_2host": round(
-                    model["efficiency"] * m_dcn_l["efficiency"], 4
-                ),
+                "measured_eff": fps * dt1 / n_dev,
+                **_ID,
             }))
-            print(
-                f"# video {n_frames}f mesh {D}x{R}: {fps:.2f} frames/s"
-                f"{caveat}; 2-host prediction: ICI "
-                f"{model['efficiency']:.3f} x DCN(local-IO) "
-                f"{m_dcn_l['efficiency']:.3f} = "
-                f"{model['efficiency']*m_dcn_l['efficiency']:.3f}; "
-                f"central-source regime is DCN-bound at "
-                f"{m_dcn_c['efficiency']:.3f} (BASELINE.md's warning)",
-                file=sys.stderr,
-            )
 
 
 if __name__ == "__main__":

@@ -64,7 +64,7 @@ class Align(str, enum.Enum):
 class Precision(str, enum.Enum):
     """Accumulation dtype policy.
 
-    - ``FP32``: float32 accumulation (TPU-native default).
+    - ``FP32``: float32 accumulation (default).
     - ``BF16``: bfloat16 weights/activations, fp32 accumulation (fast path).
     - ``FIXED``: int32 emulation of the reference's ``ap_fixed`` numerics
       (``lanczos.h:79-82``): weights with ``bit_precision`` fractional bits,
@@ -79,7 +79,7 @@ class Precision(str, enum.Enum):
 class Profile(str, enum.Enum):
     """Named semantic presets (see ``ResampleConfig.from_profile``).
 
-    - ``PRECISE``: best-quality TPU-native resampling (normalized weights,
+    - ``PRECISE``: best-quality resampling (normalized weights,
       clamped edges, fp32).  Not bit-matched to anything; this is the
       framework's own recommended mode.
     - ``C_ORACLE``: bit-near emulation of the reference's fp64 software

@@ -1,6 +1,6 @@
 """Image I/O: from-scratch codecs (NumPy + zlib + native C++ hot loops).
 
-The TPU-native counterpart of the reference's vendored stb codec
+The counterpart of the reference's vendored stb codec
 (``stb.cpp:1-13``, ``stb_image/``): PNG decode/encode and baseline JPEG
 decode on the host so the test harness and CLI consume/produce the same
 byte formats the reference testbench did (``full_TB.h:107,170-177``).

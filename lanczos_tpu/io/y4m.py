@@ -6,8 +6,8 @@ The reference is image-only (its stb codec decodes stills,
 real pipeline would use.  Y4M is the standard uncompressed testbench
 container (mjpegtools/ffmpeg/x264 interchange): a one-line ASCII header
 followed by ``FRAME\\n``-delimited raw planar YCbCr frames — exactly the
-planar layout the TPU kernels prefer, so frames go from file to the
-fused MXU kernel with zero relayout.
+planar layout the fused kernel takes, so frames go from file to the
+kernel with zero relayout.
 
 Scope: C420 (all chroma-siting variants: 420jpeg/420mpeg2/420paldv),
 C422, C444, and Cmono at 8 bits, plus the p10/p12/p14/p16 deep variants

@@ -17,7 +17,7 @@ make this impossible to reproduce in fp32 on device:
    boundary the double sum doesn't (rare but real at 4K scale).
 
 This module reproduces the double semantics with *integer* arithmetic, which
-TPUs execute exactly:
+accelerators execute exactly:
 
 - Fractional rows: a fixed-point lattice.  Weights are pre-rounded to
   ``2^-50`` units (int64); the tap sum is an exact int64 dot product, and

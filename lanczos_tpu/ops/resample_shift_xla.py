@@ -1,20 +1,18 @@
 """Shift-FMA resampling in pure XLA (no gathers, no Pallas).
 
-Same phase decomposition as the Pallas shift kernel
-(``resample_pallas._shift_pass``), generalized to ANY reduced rational
-scale N/D: output position k·N+p is Σ_t w[p,t]·x[kD + ⌊pD/N⌋ + 1 + t]
-over the support-padded input — every phase is a sum of 2·support
-STRIDE-D shifted slices times scalar weights (XLA strided slices are
-native and fuse), and phases interleave with a stack+reshape.  Expressed
-as jnp ops, XLA fuses each pass into one loop and handles the (lane-dim)
-interleave natively — avoiding both the gather ops of ``resample_xla``
-(slow on TPU) and Mosaic's lane-interleave restriction.  Downscales get
-the stretched-kernel treatment (support = ⌈a·D/N⌉).
+The reference's phase decomposition (``kernel.cpp:50-59``) for ANY
+reduced rational scale N/D: output position k·N+p is
+Σ_t w[p,t]·x[kD + ⌊pD/N⌋ + 1 + t] over the support-padded input — every
+phase is a sum of 2·support STRIDE-D shifted slices times scalar weights
+(XLA strided slices are native and fuse), and phases interleave with a
+stack+reshape.  Expressed as jnp ops, XLA fuses each pass into one loop
+and handles the phase interleave natively — avoiding the gather ops of
+``resample_xla``.  Downscales get the stretched-kernel treatment
+(support = ⌈a·D/N⌉).
 
-This is the framework's default single-chip compute path; the hand-
-written Pallas kernel remains for explicit VMEM scheduling control, and
-the gather path for huge-N scales (unrolling N·2·support slices stops
-paying off past N ≈ 32).
+This is the plain-XLA path ``auto`` picks wherever the fused Pallas kernel
+does not run; the gather path covers huge-N scales (unrolling N·2·support
+slices stops paying off past N ≈ 32).
 """
 
 from __future__ import annotations
@@ -28,7 +26,7 @@ from lanczos_tpu.core.config import EdgeMode, Precision, ResampleConfig
 from lanczos_tpu.core.config import EdgeMode as _EdgeMode
 from lanczos_tpu.core.weights import phase_table as _phase_table
 
-# np.pad mode per edge semantics (shared rule with the Pallas kernels)
+# np.pad mode per edge semantics
 _PAD_MODE = {
     _EdgeMode.CLAMP: "edge",
     _EdgeMode.DROP: "constant",

@@ -5,8 +5,8 @@ line buffer (``worker.h:140-142``, ``cyclic_buffer.h:63``).  Promoted to the
 inter-chip level (SURVEY.md §2 "parallelism strategies"), the same idea is:
 shard image **rows** across devices; each shard needs an ``a``-input-row
 halo from each neighbor to compute its slice of the vertical pass, exchanged
-with ``jax.lax.ppermute`` over ICI.  The horizontal pass is row-local and
-needs no communication.  A second mesh axis shards the **batch** (frames)
+with ``jax.lax.ppermute`` over the inter-card links (NVLink).  The
+horizontal pass is row-local and needs no communication.  A second mesh axis shards the **batch** (frames)
 data-parallel.
 
 Key invariant making the halo exactly ``a`` rows: with reduced scale N/D and
@@ -29,13 +29,13 @@ f32 summation order flips occasional truncation boundaries, and the
 exactness guarantee (tested in test_sharded.py) is worth more here than
 throughput we cannot benchmark on one chip.
 
-The fused MXU overlay (uint8 inputs, ``use_mxu``) keeps the same
+The fused-kernel overlay (uint8 inputs, ``use_mxu``) keeps the same
 exactness property against ITS single-chip twin: each shard applies the
 same global banded rows as per-shard dense matrices (edge semantics
 included — no padding tricks, the wrap-around halo rows are provably
 never referenced by edge shards' weights), and a window-offset shift of
 zero columns adds exact 0.0 terms, so sharded output is BIT-IDENTICAL to
-the single-chip pallas MXU backend (tested incl. drop+normalize and
+the single-card pallas backend (tested incl. drop+normalize and
 dering).
 """
 
@@ -48,6 +48,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from lanczos_tpu import platform
 from lanczos_tpu.core.config import EdgeMode, Order, Precision, ResampleConfig
 from lanczos_tpu.ops.resample_xla import SeparableOps, apply_banded, quantize_uint8
 
@@ -278,23 +279,19 @@ class ShardedUpscaler:
             )
         )
 
-        # fused MXU overlay (uint8 inputs): per-shard edge-exact weight
+        # fused-kernel overlay (uint8 inputs): per-shard edge-exact weight
         # matrices as row-sharded operands; bit-identical to the
-        # single-chip MXU backend (same band values, same f32 summation
-        # order — window-offset zero padding adds exact 0.0 terms)
+        # single-card pallas backend (same band values; the vertical sums
+        # are exact, so the window placement cannot change them)
         self.use_mxu = False
-        if (
-            not self.fixed
-            and not self.c_exact
-            and backend in ("auto", "mxu")
-            and (backend == "mxu" or jax.default_backend() != "cpu")
-        ):
-            self._setup_mxu(interpret=jax.default_backend() == "cpu")
+        auto_fused = backend == "auto" and platform.auto_backend(cfg) == "pallas"
+        if not self.fixed and not self.c_exact and (backend == "mxu" or auto_fused):
+            self._setup_mxu()
         if backend == "mxu" and not self.use_mxu:
             raise NotImplementedError(
-                "sharded MXU path needs a float config with shard-local "
-                "output rows ≡ 0 (mod N), height-first nonlinearities, "
-                "and a VMEM-feasible uniform per-shard plan"
+                "sharded fused-kernel path needs a float config with "
+                "shard-local output rows ≡ 0 (mod N), height-first "
+                "nonlinearities, and one plan shared by every shard"
             )
 
     def _compute_split_bounds(self) -> None:
@@ -340,8 +337,8 @@ class ShardedUpscaler:
         else:
             self.b_top = -1  # overlap structurally unavailable
 
-    def _setup_mxu(self, interpret: bool) -> None:
-        """Build the per-shard MXU plans, or leave use_mxu = False.
+    def _setup_mxu(self) -> None:
+        """Build the per-shard fused-kernel plans, or leave use_mxu = False.
 
         Every shard covers output rows [r·OL, (r+1)·OL); with OL ≡ 0
         (mod N) the window-start formula is shard-invariant after the
@@ -354,7 +351,7 @@ class ShardedUpscaler:
 
         from lanczos_tpu.ops.resample_pallas import (
             _build_mxu_plan,
-            _split_bf16,
+            split_weights,
         )
 
         cfg = self.cfg
@@ -377,7 +374,7 @@ class ShardedUpscaler:
         off = 0 if cfg.align.value == "zero" else d - n
         off_eff = off + 2 * n * halo
         plans = None
-        for t in (128, 96, 64, 48, 32):
+        for t in (64, 32, 16):
             cand = []
             for r in range(R):
                 idx_r = op_v.idx[r * ol : (r + 1) * ol] - (r * il - halo)
@@ -385,11 +382,15 @@ class ShardedUpscaler:
                     idx=idx_r, weights=op_v.weights[r * ol : (r + 1) * ol],
                     a=int(op_v.a),
                 )
-                cand.append(_build_mxu_plan(syn, t, op_r, op_h, n, d, off_eff))
+                cand.append(_build_mxu_plan(
+                    syn, t, op_r, op_h, n, d, off_eff, dedup_v=False
+                ))
             if all(p is not None for p in cand):
+                # one kernel (tables, window pieces, horizontal weights)
+                # serves every shard; only the vertical stacks differ
                 keys = {
-                    (p.tile_out, p.kv, p.ih_eff, p.cb, p.kh, p.n_cb,
-                     p.starts_h, p.uniq_h, p.wh.shape)
+                    (p.tile_out, p.kv_pieces, p.starts_v, p.cb, p.kh_pieces,
+                     p.n_cb, p.starts_h, p.uniq_h, p.wh.shape)
                     for p in cand
                 }
                 if len(keys) == 1 and all(
@@ -400,13 +401,13 @@ class ShardedUpscaler:
         if plans is None:
             return
         wv_all = np.stack([p.wv for p in plans])  # (R, nt, rows_v, kv)
-        wv_hi, wv_lo = _split_bf16(wv_all)
+        wv_hi, wv_lo = split_weights(wv_all, -1)
         spec_w = P(self.rows_axis, None, None, None)
         put = lambda a: jax.device_put(a, NamedSharding(self.mesh, spec_w))
         self._mxu_tables = (put(wv_hi), put(wv_lo))
         from lanczos_tpu.ops.resample_pallas import make_mxu_ops
 
-        self._mxu = make_mxu_ops(syn, plans[0], interpret=interpret)
+        self._mxu = make_mxu_ops(syn, plans[0], platform.pallas_interpret())
         self._mxu.mxu_wv = None  # per-shard operands, passed at call time
         spec_in = P(self.data_axis, self.rows_axis, None, None)
         self._fn_mxu = jax.jit(
@@ -653,7 +654,7 @@ class ShardedUpscaler:
     def halo_spec(self, channels: int = 3, uint8_input: bool = True) -> dict:
         """Wire bytes per ppermute direction for this model's ACTUAL
         exchange path — the analytic-model input
-        (``multihost.ici_halo_model``): the MXU overlay (which only
+        (``multihost.ici_halo_model``): the fused-kernel overlay (which only
         engages for uint8 frames — pass ``uint8_input=False`` when
         feeding floats, which fall back to the gather/shift path) and
         the fixed-point path exchange uint8 input rows; the c_exact

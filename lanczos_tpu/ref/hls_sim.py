@@ -2,7 +2,7 @@
 
 A slow, loop-level Python reenactment of the synthesized pipeline
 (``lanczos.cpp`` / ``worker.cpp`` / ``cyclic_buffer.h``), used as the ground
-truth that the vectorized TPU HLS-faithful mode (ops/fixed_point.py) must
+truth that the vectorized device HLS-faithful mode (ops/fixed_point.py) must
 match **bit-exactly**.  Structure mirrored (not translated line-by-line —
 the cyclic buffer's index indirection is replaced by a plain Python list
 with identical observable behavior):

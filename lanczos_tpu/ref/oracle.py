@@ -21,7 +21,7 @@ It reproduces, deliberately:
   This is observable reference behavior and is kept.
 
 :func:`clean_resample_2d` is the mathematically straightforward fp64
-separable resampler (any config) used to validate the clean TPU paths.
+separable resampler (any config) used to validate the clean device paths.
 """
 
 from __future__ import annotations

@@ -91,15 +91,15 @@ def test_execution_modes_agree_random_config(seed):
 
 @pytest.mark.parametrize("seed", range(12))
 def test_mxu_variant_random_config(seed):
-    """The generalized MXU plan (interpret mode) across random configs —
-    the CI twin of the on-hardware fuzz (48/48 clean)."""
+    """The fused kernel's generalized plan (interpret mode) across random
+    configs — the CPU twin of the on-card fuzz (``hwcert.py``)."""
     from lanczos_tpu.ops.resample_pallas import PallasOps, resample_2d_pallas
 
     rng = np.random.default_rng(7000 + seed)
     cfg = _random_cfg(rng)
     img = rng.integers(0, 256, size=(*cfg.in_shape, 3), dtype=np.uint8)
     try:
-        ops = PallasOps(cfg, interpret=True, variant="mxu")
+        ops = PallasOps(cfg, interpret=True)
     except NotImplementedError:
         return  # no feasible plan (e.g. drop-edge dering)
     out = np.asarray(resample_2d_pallas(img, ops))

@@ -1,4 +1,4 @@
-"""HLS-faithful fixed-point path: the vectorized TPU implementation must be
+"""HLS-faithful fixed-point path: the vectorized JAX implementation must be
 bit-exact against the literal stream-machine simulator."""
 
 import numpy as np

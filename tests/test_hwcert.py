@@ -1,7 +1,7 @@
-"""hwcert.py logic smoke (the real certification runs on the chip).
+"""hwcert.py logic smoke (the real certification runs on the card).
 
 Covers: config drawing across the full dimension grid, the interpret-
-mode MXU run, tolerance selection, report shape, and the exit code.
+mode fused-kernel run, tolerance selection, report shape, and the exit code.
 """
 
 import json

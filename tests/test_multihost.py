@@ -170,20 +170,24 @@ def test_two_process_dcn_sharded_upscaler(tmp_path):
 
 
 def test_ici_halo_model():
-    """The analytic model: 4K→8K a=3 across 8 row shards, 0.58 ms/frame
-    single-chip — the halo is a·W·C bytes per direction and must hide
-    entirely under the interior window at v5e-class ICI bandwidth."""
+    """The analytic model: 4K→8K a=3 across 8 row shards, 0.23 ms/frame
+    single-card — the halo is a·W·C bytes per direction and must hide
+    entirely under the interior window at NVLink's published 450 GB/s
+    per direction.  The link bandwidth has no default: callers pass a
+    measured or published number."""
     from lanczos_tpu.core.config import Profile, ResampleConfig
     from lanczos_tpu.parallel.multihost import ici_halo_model
 
     cfg = ResampleConfig.from_profile(
         Profile.PRECISE, (2160, 3840), out_shape=(4320, 7680), a=3
     )
-    m = ici_halo_model(cfg, 8, 0.58e-3)
+    with pytest.raises(TypeError):
+        ici_halo_model(cfg, 8, 0.23e-3)  # no assumed link bandwidth
+    m = ici_halo_model(cfg, 8, 0.23e-3, ici_bw=4.5e11)
     assert m["halo_rows"] == 3
     assert m["halo_bytes"] == 3 * 3840 * 3  # ~34 KiB per direction
-    assert m["t_halo_s"] < 5e-6  # ~1.4 us wire + 1 us latency
-    # per-shard compute ~72 us dwarfs it: full hiding, eff ~= 1
+    assert m["t_halo_s"] < 5e-6  # ~0.08 us wire + 1 us latency
+    # per-shard compute ~29 us dwarfs it: full hiding, eff ~= 1
     assert m["exposed_s"] == 0.0
     assert m["efficiency"] == 1.0
     # a pathological setup (tiny shards, slow wire) must expose cost
@@ -201,9 +205,9 @@ def test_dcn_model():
     cfg = ResampleConfig.from_profile(
         Profile.PRECISE, (2160, 3840), out_shape=(4320, 7680), a=3
     )
-    step = 4 * 0.58e-3 / 8  # 4 frames/step across 8 row-sharded chips
+    step = 4 * 0.23e-3 / 8  # 4 frames/step across 8 row-sharded cards
     central = dcn_model(cfg, step, hosts=2, frames_per_step=4)
-    # ~250 MB/step over a 12.5 GB/s NIC ≈ 20 ms vs 0.29 ms compute:
+    # ~250 MB/step over a 12.5 GB/s NIC ≈ 10 ms vs 0.12 ms compute:
     # central-source streaming is DCN-bound, not compute-bound
     assert central["efficiency"] < 0.05
     assert central["t_dcn_s"] > 50 * central["t_hidden_s"]
@@ -216,7 +220,7 @@ def test_dcn_model():
 
 
 def test_measure_ici_bw_api():
-    """The ICI-bandwidth validation hook runs on any mesh (here the
+    """The link-bandwidth measurement runs on any mesh (here the
     virtual CPU mesh — the number is memcpy noise, the API contract is
     what's under test) and plugs into ici_halo_model's bw slot."""
     from lanczos_tpu.core.config import Profile, ResampleConfig
@@ -228,5 +232,5 @@ def test_measure_ici_bw_api():
     cfg = ResampleConfig.from_profile(
         Profile.PRECISE, (2160, 3840), out_shape=(4320, 7680), a=3
     )
-    m = ici_halo_model(cfg, 8, 0.58e-3, ici_bw=bw)
+    m = ici_halo_model(cfg, 8, 0.23e-3, ici_bw=bw)
     assert 0 < m["efficiency"] <= 1.0

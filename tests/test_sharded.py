@@ -1,6 +1,6 @@
-"""Multi-chip row-partitioned path vs the single-chip XLA path.
+"""Multi-device row-partitioned path vs the single-device XLA path.
 
-Runs on the virtual 8-device CPU mesh (conftest.py) — the TPU analog of the
+Runs on the virtual 8-device CPU mesh (conftest.py) — the analog of the
 reference's "csim as fake device" strategy (SURVEY.md §4).
 """
 
@@ -179,7 +179,7 @@ def test_sharded_mxu_bit_identical_to_single_chip(rng, outs, kw):
     sh = ShardedUpscaler(cfg, mesh, backend="mxu")
     assert sh.use_mxu
     out = np.asarray(sh(jnp.asarray(imgs)))
-    ops = PallasOps(cfg, interpret=True, variant="mxu")
+    ops = PallasOps(cfg, interpret=True)
     ref = np.stack(
         [np.asarray(resample_2d_pallas(jnp.asarray(im), ops)) for im in imgs]
     )

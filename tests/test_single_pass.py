@@ -65,11 +65,14 @@ def test_roofline_model():
     cfg = ResampleConfig.from_profile(
         Profile.PRECISE, (2160, 3840), out_shape=(4320, 7680), a=3
     )
-    r = Roofline.for_config(cfg)
+    import types
+
+    h100 = types.SimpleNamespace(device_kind="NVIDIA H100 80GB HBM3")
+    r = Roofline.for_config(cfg, device=h100)
     assert r.hbm_bytes == 3 * (2160 * 3840 + 4320 * 7680)
     assert r.min_seconds > 0 and r.mpix_per_s() > 0
     assert 0 < r.fraction(r.min_seconds * 2) <= 0.5 + 1e-9
-    bw, pk = chip_spec()
+    bw, pk = chip_spec(h100)
     assert bw > 0 and pk > 0
 
     import jax
